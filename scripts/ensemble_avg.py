@@ -1,6 +1,6 @@
 """Ensemble-average trained checkpoints and measure the accuracy gain.
 
-The helmholtz postmortem (REPORT.md, hS): after the spectral defect
+The helmholtz postmortem (run hS): after the spectral defect
 correction the remaining ~1.5e-4 error is broadband net noise outside
 every basis tried.  If that noise decorrelates across training seeds, the
 mean of K independently trained solutions cuts it ~sqrt(K) — this script

@@ -4,7 +4,7 @@ Rebuilds the predictor exactly as serving does (tpinn.app.serve), runs
 polish.defect_correction on the trained fields, and reports rel-L2 against
 the problem's analytic oracle before/after the correction — the cheap
 host-side estimate of what a --deflation arm would gain, without spending
-a TPU run.
+a training run on the device.
 
 Usage:
     python scripts/offline_defl.py --checkpoint out/acc/eM_artifacts/params_stage_1.npz \

@@ -7,8 +7,8 @@ checkpoint next to the original.  Note: the rebuilt chain keeps earlier
 stages frozen exactly as in training (net.compose_stages stops gradients
 into the ``prev`` subtree), so the polish moves the FINAL stage only.
 
-Rationale: the training loop runs in f32 on TPU; the final approach to the
-≤1e-5 rel-L2 gate is a small-step quasi-Newton descent where f32 gradient
+Rationale: the training loop runs in f32 on the device; the final approach
+to the ≤1e-5 rel-L2 gate is a small-step quasi-Newton descent where f32 gradient
 noise dominates. Doing that last mile once, in f64 on the host, costs
 minutes and needs no retraining (the poisson_1d study measured a 4x rel-L2
 improvement from the same polish inside the training loop).

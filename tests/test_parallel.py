@@ -75,14 +75,14 @@ def test_sharded_grad_matches_single_device(mesh8):
 
 
 def test_multislice_mesh_layout_and_grad():
-    """Emulated 2-slice layout on the 8 virtual CPUs: points axis enumerates
-    slice-0's devices then slice-1's (contiguous blocks), and the loss
-    gradient matches the single-device value (the one DCN collective is the
-    gradient psum — numerics must be unchanged)."""
+    """Emulated 2-host layout on the 8 virtual CPUs: points axis enumerates
+    host 0's devices then host 1's (contiguous blocks), and the loss
+    gradient matches the single-device value (the one cross-host
+    collective is the gradient psum — numerics must be unchanged)."""
     devices = jax.devices()
-    mesh = parallel.make_multislice_mesh(devices, ensemble=2, n_slices=2)
+    mesh = parallel.make_multihost_mesh(devices, ensemble=2, n_hosts=2)
     assert dict(mesh.shape) == {"ensemble": 2, "points": 4}
-    # row 0 of the points axis: first half of slice 0 then first half of slice 1
+    # row 0 of the points axis: first half of host 0 then first half of host 1
     row = list(mesh.devices[0])
     assert row == [devices[0], devices[1], devices[4], devices[5]]
 
@@ -258,3 +258,38 @@ def test_run_system_with_mesh(mesh8):
     r = run_system(prob, spec, inverse=inv, mesh=mesh8)
     assert abs(r.coef["w2"] - PI**2) / PI**2 < 5e-2
     assert r.rel_l2 is not None and r.rel_l2 < 2e-2
+
+
+def test_params_stay_replicated_after_lsq_polish(mesh8, tmp_path):
+    """run_training under the mesh: after the host-side LSQ polish the
+    params go back with the sharding they had (replicated over all 8
+    devices), not onto one device.  The 12-point BC grid groups do not
+    divide the points axis and ride replicated."""
+    from tpinn.core.train import StageSpec, TrainSpec
+
+    problem = problems.poisson_2d()
+    spec = TrainSpec(
+        n_col=128, n_band=32, n_adaptive=32, n_bd=16,
+        testing_size=(21, 21), grid=21, lw=(1.0, 0.0), lsq_polish="auto",
+        stages=(StageSpec(depth=2, width=16, scl=1.0, epsil=1.0,
+                          adam_epochs=40, lbfgs_epochs=15,
+                          lbfgs_grid=12),),
+        density_every=20, plateau_every=40, tail_max=10,
+    )
+    lines = []
+    res = train.run_training(problem, spec, mesh=mesh8, log_fn=lines.append)
+    assert any("lsq polish objective" in l for l in lines)
+    assert np.isfinite(res.rel_l2)
+    devices = set(mesh8.devices.flat)
+    for leaf in jax.tree_util.tree_leaves(res.stages[-1].params):
+        assert leaf.sharding.is_fully_replicated
+        assert leaf.sharding.device_set == devices
+
+
+def test_shard_data_replicates_indivisible_batches(mesh8):
+    data = {"x_col": jnp.ones((64, 2)), "x_bd": [jnp.ones((12, 2))],
+            "u_bd": [jnp.ones((12, 1))]}
+    out = parallel.shard_data(data, mesh8)
+    assert out["x_col"].sharding == parallel.points_sharding(mesh8)
+    assert out["x_bd"][0].sharding.is_fully_replicated
+    assert out["u_bd"][0].sharding.is_fully_replicated

@@ -255,40 +255,19 @@ def test_warm_start_rejects_mismatched_architecture():
         train.run_training(problem, spec)
 
 
-def test_kernel_engine_trains_with_stage_fallback(tmp_path):
-    """engine='kernel' end-to-end: stage 1 (plain dense) runs through the
-    Pallas custom_vjp tier (interpreter on the CPU backend), stage 2
-    (composed chain) falls back to 'auto' for that stage only, with a log
-    line — training completes and converges as usual."""
-    problem = problems.annulus_laplace()
-    spec = dataclasses.replace(
-        _quick_spec(adam=60, lbfgs=25, stages=2),
-        n_col=128, n_band=32, n_adaptive=32, n_bd=16,
-        testing_size=(24, 24), engine="kernel",
-        density_every=1000, plateau_every=1000, tail_max=10,
-    )
-    lines = []
-    res = train.run_training(problem, spec, output_dir=str(tmp_path),
-                             log_fn=lines.append)
-    assert res.rel_l2 is not None and np.isfinite(res.rel_l2)
-    fallback = [l for l in lines if "engine='kernel' unavailable" in l]
-    assert len(fallback) == 1 and "stage 2" in fallback[0]
-
-
 def test_adam_precision_and_engine_phase_split(tmp_path):
     """TrainSpec.adam_precision + adam_engine: the Adam phase runs on a
     reduced-precision predictor chain (incl. the composed stage 2) under
-    the Pallas kernel engine, while L-BFGS/eval stay at full precision and
-    exact autodiff — same params pytree, training converges normally.  On
-    the CPU backend precision flags are near-no-ops numerically; this
-    exercises the dual-chain/dual-engine plumbing (stage 2's composed
-    chain falls back from the kernel with a log line)."""
+    the fused Taylor-2 engine, while L-BFGS/eval stay at full precision
+    on the default engine — same params pytree, training converges
+    normally.  On the CPU backend precision flags are near-no-ops
+    numerically; this exercises the dual-chain/dual-engine plumbing."""
     problem = problems.annulus_laplace()
     spec = dataclasses.replace(
         _quick_spec(adam=80, lbfgs=30, stages=2),
         n_col=128, n_band=32, n_adaptive=32, n_bd=16,
         testing_size=(24, 24), adam_precision="default",
-        adam_engine="kernel",
+        adam_engine="fused",
         density_every=1000, plateau_every=1000, tail_max=10,
     )
     lines = []
@@ -296,7 +275,8 @@ def test_adam_precision_and_engine_phase_split(tmp_path):
                              log_fn=lines.append)
     assert res.rel_l2 is not None and np.isfinite(res.rel_l2)
     assert len(res.stages) == 2
-    assert any("engine='kernel' unavailable" in l for l in lines)
+    assert {r["phase"] for r in res.phase_walls} >= {"adam", "lbfgs",
+                                                     "eval_f64"}
 
 
 def test_per_stage_lw_override():

@@ -1,12 +1,11 @@
-"""tpinn — a TPU-native physics-informed neural network (PINN) framework.
+"""tpinn — a physics-informed neural network (PINN) framework in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the reference
+A ground-up JAX/XLA rebuild of the capabilities of the reference
 "PINN-based online PDE calculator" (see /root/reference, SURVEY.md):
 
 - ``tpinn.core``     — solver library: symbolic PDE compiler, forward-mode
   derivative engine, MLP model zoo, on-device sampling, loss system,
   Adam schedule automaton and pure-XLA L-BFGS, multi-stage training.
-- ``tpinn.kernels``  — Pallas TPU kernels for the hot compute paths.
 - ``tpinn.parallel`` — device-mesh sharding (collocation-point data
   parallelism + ensemble parallelism) via jax.sharding / shard_map.
 - ``tpinn.problems`` — benchmark problem presets with analytic oracles.

@@ -67,7 +67,8 @@ def _recipe_train_fields(name: str) -> Dict | None:
         "lsq_polish": rec.spec.lsq_polish,
         "deflation": rec.spec.deflation,
         "note": (f"Recipe prefilled (run {rec.run_tag}, "
-                 f"{rec.expected_rel_l2:.1e} rel-L2 on TPU). Full recipe "
+                 f"{rec.expected_rel_l2:.1e} rel-L2, not yet re-measured "
+                 f"on the H100). Full recipe "
                  f"incl. VP polish/curriculum: python -m tpinn train "
                  f"--problem {name} --recipe"),
     }

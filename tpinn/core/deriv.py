@@ -17,7 +17,7 @@ pass and yields the value and both first derivatives for free:
 ``partials`` plans a minimal set of such passes covering every derivative a
 compiled PDE residual needs (see tpinn.core.pde), then evaluates them.  All
 tangents are whole-batch constants so every pass is a handful of large
-matmuls — MXU-shaped, no per-point loops.
+matmuls, no per-point loops.
 """
 
 from __future__ import annotations

@@ -1,15 +1,15 @@
 """Ensemble training: K seed-varied members, one combined solution.
 
-Motivation (measured, REPORT.md): after the L-BFGS/polish phases and the
-spectral defect correction, the remaining error of a converged PINN is
-broadband *net noise* — a high-frequency field outside every correction
-basis tried (the helmholtz hS postmortem).  Training noise decorrelates
+Motivation (measured in the earlier accuracy campaign): after the
+L-BFGS/polish phases and the spectral defect correction, the remaining
+error of a converged PINN is broadband *net noise* — a high-frequency
+field outside every correction basis tried (the helmholtz hS postmortem).  Training noise decorrelates
 across initialization seeds, so the convex combination of K independently
 trained solutions cancels ~sqrt(K) of it — a fundamentally different lever
 from more steps (hP measured: 2.5x budget REGRESSES) or more basis columns
 (the held-out guard rejects them).
 
-TPU shape: members are trained SEQUENTIALLY here — every member reuses the
+Device shape: members are trained SEQUENTIALLY here — every member reuses the
 previous member's compiled graphs (identical shapes, jit cache), so member
 k costs only run time, no compile time.  On a multi-chip mesh the same
 members ride the `ensemble` mesh axis instead
@@ -58,7 +58,6 @@ class EnsembleResult:
     rel_l2: Optional[float]                 # the ensemble's final accuracy
     deflation: Optional[dict]
     predict: Callable                        # z -> combined (corrected) u
-    fell_back: bool
 
 
 def _lsq_weights(frozen, compiled, source_fn, problem, n_grid=121):
@@ -232,4 +231,4 @@ def run_ensemble_training(
         err_correlation=(np.round(corr, 6).tolist()
                          if corr is not None else None),
         rel_l2_mean_raw=rel_mean, rel_l2=rel_final, deflation=defl,
-        predict=predict, fell_back=any(m.fell_back for m in members))
+        predict=predict)

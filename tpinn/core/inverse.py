@@ -14,7 +14,7 @@ identifies them jointly with the network weights.  Everything reuses the
 forward machinery unchanged — the scanned Adam automaton and the pure-XLA
 L-BFGS are pytree-generic, so the joint ``{"net": …, "coef": {…}}``
 parameter tree rides the exact same compiled phases (optim.make_adam_phase,
-optim.lbfgs_over_pytree); on TPU the coefficient adds two scalar lanes to
+optim.lbfgs_over_pytree); the coefficient adds one scalar per unknown to
 the raveled flat layout and nothing else.
 
 ``loss_info`` layout (the UI contract, loss.py) gains one column:
@@ -105,7 +105,7 @@ def make_inverse_loss(
     loss.make_loss so the optimizer drivers are reused verbatim; the
     residual rides the structure-aware fused engine (pde.residual_fast) with
     the coefficient dict threaded through the expression evaluation, so the
-    tangent passes stay fused into the MLP matmuls on the MXU.
+    tangent passes stay fused into the MLP matmuls.
     """
 
     def loss_fn(params: dict, data: Dict, lw: Array, ref: Array):
@@ -190,7 +190,7 @@ def run_inverse(
 
     ``mesh``: a jax.sharding.Mesh (tpinn.parallel.make_mesh) — collocation
     and BC batches shard over the 'points' axis exactly as in the forward
-    path (one gradient psum per step over ICI); the joint pytree, including
+    path (one gradient psum per step); the joint pytree, including
     the coefficient scalars, stays replicated.  Observations are small and
     replicated (their MSE is computed redundantly per chip — free).
     """

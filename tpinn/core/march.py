@@ -18,7 +18,7 @@ causality STRUCTURAL — each window is a short-horizon problem that plain
 training solves well, and the handoff is data, not a weight schedule.
 The two compose: a causal front can run inside each window.
 
-TPU-first notes: each window is an ordinary ``run_training`` (scanned
+Design notes: each window is an ordinary ``run_training`` (scanned
 Adam automaton + pure-XLA L-BFGS — everything rides the existing jit
 graphs at the window's static shapes); the IC handoff enters the loss as
 a ``BCGroup.value_fn`` whose body is the previous window's frozen
@@ -60,7 +60,6 @@ class MarchResult:
     windows: List[TrainResult]
     predict: Callable[[Array], Array]       # piecewise composite u(z)
     rel_l2: Optional[float]                 # vs analytic, FULL domain
-    fell_back: bool
 
 
 def axis_derivative(f: Callable, axis_index: int) -> Callable:
@@ -209,7 +208,6 @@ def run_time_marching(
     results: List[TrainResult] = []
     predicts = []
     prev_predict = None
-    fell_back = False
     for k in range(n_windows):
         sub = window_problem(problem, ai, edges[k], edges[k + 1], k,
                              prev_predict,
@@ -225,7 +223,6 @@ def run_time_marching(
         results.append(res)
         predicts.append(res.predict)
         prev_predict = res.predict
-        fell_back = fell_back or res.fell_back
 
     predict = make_march_predictor(predicts, edges, ai)
 
@@ -300,7 +297,6 @@ def run_time_marching(
             ],
             "rel_l2": rel_l2,
             "rel_l2_windows": [r.rel_l2 for r in results],
-            "fell_back": fell_back,
         }
         tmp = out / "march.json.tmp"
         tmp.write_text(json.dumps(record, indent=1))
@@ -308,5 +304,5 @@ def run_time_marching(
 
     return MarchResult(
         problem=problem, edges=edges, axis_index=ai, windows=results,
-        predict=predict, rel_l2=rel_l2, fell_back=fell_back,
+        predict=predict, rel_l2=rel_l2,
     )

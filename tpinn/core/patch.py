@@ -16,11 +16,11 @@ problem at its own scale; the loss trains all patches JOINTLY through the
 summed predictor, so continuity needs no interface terms — the overlap
 does it.
 
-TPU-first design: all P nets evaluate at ALL collocation points as one
-``jax.vmap`` over stacked parameters — a batched matmul chain on the MXU
+Device design: all P nets evaluate at ALL collocation points as one
+``jax.vmap`` over stacked parameters — a batched matmul chain
 (P small matmuls fused into one [P, N, W] contraction) with static
 shapes; no gather/scatter, no per-patch point routing.  The stacked
-pytree has exactly the ensemble layout (leading P axis), so on a pod it
+pytree has exactly the ensemble layout (leading P axis), so on a mesh it
 shards over the mesh's 'ensemble' axis unchanged (tpinn/parallel/mesh.py)
 — patch-parallelism IS ensemble-parallelism with a spatial window.
 

@@ -15,12 +15,11 @@ weighted quadratic the loss defines:
     Σ_g mean_g (u − u_g)² + lw₀ · mean (residual)²
 
 is one weighted least-squares solve.  tpinn runs the nonconvex feature
-learning in fast float32 on the TPU MXU, then solves this convex
-subproblem ONCE in float64 on the host.  That replaces the reference's
-strategy of running *everything* in float64 (software.py:18) — f64 is
-emulated-or-rejected on TPU hardware — and lands the output layer on the
-global optimum of the quadratic instead of where an iterative optimizer
-stopped.
+learning in fast float32 on the device, then solves this convex
+subproblem ONCE in float64 on the host CPU.  That replaces the reference's
+strategy of running *everything* in float64 (software.py:18) and lands
+the output layer on the global optimum of the quadratic instead of where
+an iterative optimizer stopped.
 
 Cost: one multi-output derivative pass over the hidden basis (the same
 Taylor machinery as the residual, with H outputs instead of 1) plus an
@@ -249,7 +248,7 @@ def _last_layer_lsq(predictor, compiled, params, data, lw0, source_fn,
 # Resonant-mode deflation (spectral polish for near-singular linear PDEs)
 # ===========================================================================
 #
-# Motivation (measured, REPORT.md round 3): the trained Helmholtz k=20
+# Motivation (measured in round 3): the trained Helmholtz k=20
 # solution's remaining error concentrates on the Dirichlet eigenmodes
 # v_ab = sin(aπx̂)sin(bπŷ) whose eigenvalue under L = Δ + k² is nearly
 # zero (λ_ab = π²(a²+b²) ≈ k², the "resonance ring").  Those modes vanish

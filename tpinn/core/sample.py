@@ -180,8 +180,9 @@ def gaussian_smooth_2d(
         lo = (k - 1) // 2
         hi = k - 1 - lo
         ap = jnp.pad(a, ((0, 0), (lo, hi)))
-        # precision="highest": TPU conv defaults to bf16 passes, which would
-        # corrupt the density (and differs from the scipy parity oracle).
+        # precision="highest": a reduced-precision conv (bf16 or TF32
+        # inputs) would corrupt the density and differ from the scipy
+        # parity oracle.
         return jax.vmap(
             lambda r: jnp.convolve(r, w, mode="valid", precision="highest")
         )(ap)

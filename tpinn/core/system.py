@@ -10,7 +10,7 @@ loss stacks one residual column per equation:
     loss = Σ_g MSE(u_pred[:, field_g] − u_bc_g)            per-BC-group data
          + lw[0] · Σ_e MSE(residual_e)                     per-equation
 
-Design notes (TPU-first):
+Design notes:
 - All fields' derivatives come out of the SAME forward-mode passes — the
   derivative engine (deriv.partials) is already [N, m]-valued, so a coupled
   system costs the same tangent passes as a scalar problem of the same

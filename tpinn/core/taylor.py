@@ -8,16 +8,14 @@ derivative "streams" can ride ONE matmul per layer by stacking them along
 the batch axis:
 
     H_all = stack([h, h_i, h_j, h_ii, h_jj, ...])   # [S*B, width]
-    X_all = H_all @ W                                # one MXU call
+    X_all = H_all @ W                                # one matmul
     a     = φ(x);  a_i = φ'(x)·x_i
     a_ij  = φ''(x)·x_i·x_j + φ'(x)·x_ij
 
 This cuts matmul count ~2× vs nested jvp and turns five skinny [B, 60]
-matmuls into one [5B, 60] matmul — much better MXU utilization — while
-remaining plain JAX: ``jax.grad`` differentiates through it, so the same
-fast path serves the training step.  The Pallas kernel in
-tpinn.kernels.mlp_taylor implements this identical recurrence fully in
-VMEM for the inference/bench path.
+matmuls into one [5B, 60] matmul, while remaining plain JAX: ``jax.grad``
+differentiates through it, so the same fast path serves the training
+step (``engine="fused"``).
 
 Activation derivative table:
     tanh:  φ' = 1 − a²          φ'' = −2·a·(1 − a²)
@@ -244,16 +242,13 @@ def attach_frozen_meta(frozen, predictor, params):
     return frozen
 
 
-# Engine dispatch default.  Measured on TPU v5e (6×60 net, 5200-pt batch,
-# annulus residual): the generic nested-jvp engine beats the stacked fused
-# engine BOTH forward (342μs vs 612μs) and through jax.grad — XLA's jvp
-# linearization fuses tangent arithmetic into the primal matmuls better
-# than the hand-stacked [S·B, W] formulation, which pays for its stream
-# (re)stacking.  The fused engine therefore stays opt-in (it is also the
-# reference implementation for the Pallas kernel, which avoids the
-# restacking cost entirely by staying in VMEM).  Re-measured round 3
-# (out/bench_details.json engines sweep, full training step): auto
-# 4.1M pts/s / kernel 3.9M / fused 3.6M — the default stands.
+# Engine dispatch default: the generic nested-jvp engine.  On the
+# accelerator this was first tuned for, the stacked fused engine lost to
+# it both forward and through jax.grad — XLA's jvp linearization fuses
+# tangent arithmetic into the primal matmuls better than the hand-stacked
+# [S·B, W] formulation, which pays for its stream (re)stacking.  Not yet
+# measured on the H100; the fused engine stays opt-in
+# (make_loss(engine="fused") or set_fused(True)).
 PREFER_FUSED = False
 
 

@@ -2,7 +2,7 @@
 
 from tpinn.parallel.mesh import (  # noqa: F401
     make_mesh,
-    make_multislice_mesh,
+    make_multihost_mesh,
     round_count,
     points_sharding,
     replicated,

@@ -5,34 +5,35 @@ DP/TP/PP/SP/EP, no collectives of any kind).  The right scale axes for this
 workload — and the ones implemented here — are:
 
 - **points** (data parallelism): the loss is a mean over collocation /
-  boundary points, so sharding the point batch across chips makes every
+  boundary points, so sharding the point batch across devices makes every
   per-point residual evaluation local; only the scalar loss terms and the
   parameter gradients cross the interconnect (one psum per step, inserted
-  by XLA from sharding annotations, riding ICI within a slice).  Parameters
-  (a few-KB MLP) are replicated.
+  by XLA from sharding annotations).  Parameters (a few-KB MLP) are
+  replicated.
 - **ensemble** (a form of model parallelism that actually pays off at this
   model size): independent networks (different seeds / frequency scales /
-  stages) trained simultaneously via vmap, sharded one-or-more per chip.
+  stages) trained simultaneously via vmap, sharded one-or-more per device.
   Tensor/pipeline parallelism would be counterproductive for ~10-100KB
-  parameter pytrees — each chip's MXU is already underutilized by a 50-wide
-  layer; this is documented as a deliberate design position (SURVEY §5).
+  parameter pytrees — a 50-wide layer already leaves each device's matrix
+  units mostly idle; this is documented as a deliberate design position
+  (SURVEY §5).
 
 Everything uses `jax.sharding.Mesh` + NamedSharding annotations under
 ``jit`` — XLA chooses the collectives — with
 ``jax.lax.with_sharding_constraint`` pinning the point batches.  The same
-code runs on 1 CPU device, a virtual 8-CPU mesh (tests), or a TPU slice.
+code runs on 1 CPU device, a virtual 8-CPU mesh (tests), or the cards of
+one or more GPU hosts.  The cards of one host are joined all to all, so
+the mesh follows the algorithm, not the topology.
 
-**Multi-slice (DCN) position.**  Beyond one ICI-connected slice, the only
-traffic this workload generates is the per-step gradient psum of a
-10-100KB parameter pytree — orders of magnitude under DCN bandwidth — so
-the right multi-slice strategy is plain points-DP *across* slices too:
-``make_multislice_mesh`` extends the points axis over every slice, laying
-devices out so points-axis neighbours are ICI-adjacent within a slice and
-exactly one gradient all-reduce per step crosses DCN.  Under a
+**Several hosts.**  Beyond one host, the only traffic this workload
+generates is the per-step gradient psum of a 10-100KB parameter pytree,
+so the right strategy is plain points-DP *across* hosts too:
+``make_multihost_mesh`` extends the points axis over every host, laying
+devices out so points-axis neighbours share a host and exactly one
+gradient all-reduce per step crosses the network.  Under a
 multi-controller launch each process calls ``jax.distributed.initialize()``
 first and passes ``jax.devices()`` (global) here; all sharding annotations
-downstream are unchanged because the axis names are the same.  No
-tensor/pipeline sharding ever crosses DCN (nothing here would amortize it).
+downstream are unchanged because the axis names are the same.
 """
 
 from __future__ import annotations
@@ -67,49 +68,47 @@ def make_mesh(
     return Mesh(arr, (ENSEMBLE_AXIS, POINTS_AXIS))
 
 
-def make_multislice_mesh(
+def make_multihost_mesh(
     devices: Optional[Sequence] = None,
     ensemble: int = 1,
-    n_slices: Optional[int] = None,
+    n_hosts: Optional[int] = None,
 ) -> Mesh:
-    """(ensemble, points) mesh spanning multiple ICI slices over DCN.
+    """(ensemble, points) mesh spanning the devices of several hosts.
 
-    Devices are grouped by ``slice_index`` (TPU runtime attribute; when
-    absent — CPU test stand-ins — contiguous blocks of ``len/n_slices``
-    emulate slices).  Within each ensemble row the points axis enumerates
-    slice-0's chips, then slice-1's, …, so XLA's gradient all-reduce
-    decomposes into in-slice ICI reduce-scatters plus one small cross-slice
-    DCN exchange.  Run ``jax.distributed.initialize()`` per process first
-    under a multi-controller launch.
+    Devices are grouped by ``process_index``, one group per host process.
+    When every device reports the same process (one process driving every
+    card, or virtual CPU devices in tests), ``n_hosts`` contiguous blocks
+    of ``len/n_hosts`` devices stand for the hosts.  Within each ensemble
+    row the points axis enumerates host 0's devices, then host 1's, …, so
+    XLA's gradient all-reduce decomposes into in-host reductions plus one
+    small cross-host exchange.  Run ``jax.distributed.initialize()`` per
+    process first under a multi-controller launch.
     """
     devices = list(devices if devices is not None else jax.devices())
-    slice_ids = [getattr(d, "slice_index", None) for d in devices]
-    if any(s is None for s in slice_ids):
-        if n_slices is None:
-            n_slices = 1
-        if len(devices) % n_slices:
-            raise ValueError(f"{len(devices)} devices not divisible by "
-                             f"n_slices={n_slices}")
-        per = len(devices) // n_slices
-        groups = [devices[i * per:(i + 1) * per] for i in range(n_slices)]
+    procs = sorted({d.process_index for d in devices})
+    if len(procs) > 1:
+        if n_hosts is not None and n_hosts != len(procs):
+            raise ValueError(f"n_hosts={n_hosts} but the devices span "
+                             f"{len(procs)} processes")
+        groups = [[d for d in devices if d.process_index == p]
+                  for p in procs]
     else:
-        order = sorted(set(slice_ids))
-        groups = [[d for d, s in zip(devices, slice_ids) if s == sid]
-                  for sid in order]
-    per_slice = len(groups[0])
-    if any(len(g) != per_slice for g in groups):
-        raise ValueError("slices have unequal device counts")
-    if per_slice % ensemble:
-        raise ValueError(f"per-slice device count {per_slice} not divisible "
+        n_hosts = n_hosts or 1
+        if len(devices) % n_hosts:
+            raise ValueError(f"{len(devices)} devices not divisible by "
+                             f"n_hosts={n_hosts}")
+        per = len(devices) // n_hosts
+        groups = [devices[i * per:(i + 1) * per] for i in range(n_hosts)]
+    per_host = len(groups[0])
+    if any(len(g) != per_host for g in groups):
+        raise ValueError("hosts have unequal device counts")
+    if per_host % ensemble:
+        raise ValueError(f"per-host device count {per_host} not divisible "
                          f"by ensemble={ensemble}")
-    # [ensemble, points] with points = slice-major blocks of in-slice chips
-    rows = []
-    for e in range(ensemble):
-        row = []
-        chunk = per_slice // ensemble
-        for g in groups:
-            row.extend(g[e * chunk:(e + 1) * chunk])
-        rows.append(row)
+    # [ensemble, points] with points = host-major blocks of in-host devices
+    chunk = per_host // ensemble
+    rows = [[d for g in groups for d in g[e * chunk:(e + 1) * chunk]]
+            for e in range(ensemble)]
     return Mesh(np.asarray(rows, dtype=object), (ENSEMBLE_AXIS, POINTS_AXIS))
 
 
@@ -122,23 +121,30 @@ def replicated(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P())
 
 
+def _batch_sharding(x: Array, mesh: Mesh) -> NamedSharding:
+    """Points sharding when the batch divides the points axis, else
+    replicated: samplers round their counts (``round_count``), but a
+    deterministic grid (e.g. 450 points per BC group on 4 devices) need
+    not divide, and its few points are cheap to evaluate on every
+    device."""
+    if x.shape[0] % mesh.shape[POINTS_AXIS] == 0:
+        return points_sharding(mesh)
+    return replicated(mesh)
+
+
 def _constrain_points(x: Array, mesh: Mesh) -> Array:
-    return jax.lax.with_sharding_constraint(x, points_sharding(mesh))
+    return jax.lax.with_sharding_constraint(x, _batch_sharding(x, mesh))
 
 
 def shard_data(data: Dict, mesh: Mesh) -> Dict:
-    """Place a sampler output dict with point batches sharded over chips.
-
-    BC groups keep whole-group locality only if n_bd divides the axis size;
-    jax.device_put handles either way (uneven → XLA pads internally is NOT
-    allowed, so counts must divide the points-axis size — the samplers take
-    care of that via ``round_count``).
-    """
-    ps = points_sharding(mesh)
+    """Place a sampler output dict with point batches sharded over the
+    devices (a batch that does not divide the points axis is
+    replicated)."""
+    put = lambda x: jax.device_put(x, _batch_sharding(x, mesh))
     out = dict(data)
-    out["x_col"] = jax.device_put(data["x_col"], ps)
-    out["x_bd"] = [jax.device_put(x, ps) for x in data["x_bd"]]
-    out["u_bd"] = [jax.device_put(u, ps) for u in data["u_bd"]]
+    out["x_col"] = put(data["x_col"])
+    out["x_bd"] = [put(x) for x in data["x_bd"]]
+    out["u_bd"] = [put(u) for u in data["u_bd"]]
     return out
 
 
@@ -167,8 +173,8 @@ def sharded_sampler(sample_fn: Callable, mesh: Mesh) -> Callable:
 def make_parallel_loss(loss_fn: Callable, mesh: Mesh) -> Callable:
     """Annotate a loss so point batches stay sharded and params replicated.
 
-    XLA turns the final means into a reduce over the points axis (psum on
-    ICI) automatically; nothing else crosses chips.
+    XLA turns the final means into a reduce over the points axis (a psum)
+    automatically; nothing else crosses devices.
     """
 
     def fn(params, data, lw, ref):

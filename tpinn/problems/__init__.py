@@ -267,8 +267,8 @@ def convection_1d(c: float = 30.0) -> ProblemSpec:
     in-net causal weighting 0.265 (front mechanism verified — slabs
     converge strictly left→right — but at this budget the swept-late
     slabs are undertrained).  Per-stage c-curricula are the third arm
-    (StageSpec.equation + init_from="prev"); decisive TPU-budget A/Bs
-    ride the r4b queue (cvT0/cvT20/cvTc/cvTM).
+    (StageSpec.equation + init_from="prev"); the longer-budget A/Bs
+    (cvT0/cvT20/cvTc/cvTM) await an H100 run.
 
     Posed 2π-periodic in x via the periodic feature map (the network is
     exactly periodic, so the IC u(x,0) = sin(x) is the only data term).

@@ -238,22 +238,22 @@ def get_system(name: str) -> SystemSpec:
 # ---------------------------------------------------------------------------
 
 SYSTEM_RECIPES = {
-    # kv1 (all-TPU, out/kov_tpu/system.json): aggregate 3.67e-4 —
-    # u 2.5e-4, v 1.8e-3, p 8.7e-4 (pressure pinned on one edge only)
+    # kv1 (earlier accelerator run; awaiting an H100 run): aggregate
+    # 3.67e-4 — u 2.5e-4, v 1.8e-3, p 8.7e-4 (pressure pinned on one edge only)
     "kovasznay": {
         "adam": 12000, "lbfgs": 8000, "depth": 5, "width": 64,
         "n_col": 8000, "n_adaptive": 2000, "n_bd": 400,
         "expected_rel_l2": 3.7e-4, "run_tag": "kv1",
     },
-    # tg1 queue arm pending; CPU evidence (REPORT round-4): u 7.2e-4,
+    # tg1 pending; CPU evidence (round 4): u 7.2e-4,
     # v 8.1e-4, p 6.6e-3 at 6k+5k
     "taylor_green": {
         "adam": 10000, "lbfgs": 8000, "depth": 5, "width": 64,
         "n_col": 8000, "n_adaptive": 2000, "n_bd": 300,
         "expected_rel_l2": 8e-4, "run_tag": "tg1(queued); CPU r4",
     },
-    # sch1 (all-TPU, out/sch_tpu/system.json): aggregate 1.28e-2 —
-    # u 1.0e-2, v 1.6e-2 on the Satsuma-Yajima focusing bound state
+    # sch1 (earlier accelerator run; awaiting an H100 run): aggregate
+    # 1.28e-2 — u 1.0e-2, v 1.6e-2 on the Satsuma-Yajima focusing bound state
     "schrodinger": {
         "adam": 20000, "lbfgs": 8000, "depth": 5, "width": 96,
         "n_col": 8192, "n_adaptive": 2048, "n_bd": 512,

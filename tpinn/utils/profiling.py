@@ -3,16 +3,79 @@
 - ``trace(logdir)``: jax.profiler trace context (TensorBoard-compatible);
 - ``StepTimer``: wall-clock step timing with ``block_until_ready``
   semantics for honest device timings;
-- ``timed(fn)``: one-shot timing helper returning (result, seconds).
+- ``timed(fn)``: one-shot timing helper returning (result, seconds);
+- ``PhaseTimer``: wall seconds per named training phase, with the part of
+  each that JAX spent tracing, lowering and compiling.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Callable, Iterator
 
 import jax
+
+# JAX's own duration events for the three steps of a compilation
+# (jax._src.dispatch); they fire in the thread that dispatched the call
+_COMPILE_EVENTS = frozenset({
+    "/jax/core/compile/jaxpr_trace_duration",
+    "/jax/core/compile/jaxpr_to_mlir_module_duration",
+    "/jax/core/compile/backend_compile_duration",
+})
+_compile_secs = threading.local()
+_listener_lock = threading.Lock()
+_listener_installed = False
+
+
+def _on_duration_event(event: str, duration: float, **_kw) -> None:
+    if event in _COMPILE_EVENTS:
+        _compile_secs.total = getattr(_compile_secs, "total", 0.0) + duration
+
+
+def compile_seconds() -> float:
+    """Seconds the calling thread has spent compiling since the listener
+    was installed (``PhaseTimer`` installs it)."""
+    global _listener_installed
+    with _listener_lock:
+        if not _listener_installed:
+            jax.monitoring.register_event_duration_secs_listener(
+                _on_duration_event)
+            _listener_installed = True
+    return getattr(_compile_secs, "total", 0.0)
+
+
+class PhaseTimer:
+    """Wall and compile seconds per (stage, phase), summed over repeats.
+
+    The wall of a phase includes its device time only where the phase
+    ends in a host transfer, as every phase of ``run_training`` does.
+
+    >>> timer = PhaseTimer()
+    >>> with timer.phase(1, "adam"):
+    ...     run_adam()
+    >>> timer.rows()   # [{"stage": 1, "phase": "adam", "wall_s": ..,
+    ...                #   "compile_s": ..}]
+    """
+
+    def __init__(self):
+        self._rows = {}
+        compile_seconds()
+
+    @contextlib.contextmanager
+    def phase(self, stage: int, name: str):
+        c0, t0 = compile_seconds(), time.perf_counter()
+        try:
+            yield
+        finally:
+            row = self._rows.setdefault((stage, name), [0.0, 0.0])
+            row[0] += time.perf_counter() - t0
+            row[1] += compile_seconds() - c0
+
+    def rows(self):
+        return [{"stage": s, "phase": n, "wall_s": w, "compile_s": c}
+                for (s, n), (w, c) in self._rows.items()]
 
 
 @contextlib.contextmanager

@@ -4,8 +4,8 @@
 runs trainings on background daemon threads (tpinn.app.controller), so two
 concurrent jobs toggling the flag for their f64 host-evaluation sections
 could interleave save/toggle/restore and leave the flag wrong mid-trace
-(nondeterministic retraces, or f64 graphs shipped to a TPU runtime that
-rejects them).  Every x64 toggle+restore section in tpinn goes through
+(nondeterministic retraces, or f64 graphs traced by a job that meant
+f32).  Every x64 toggle+restore section in tpinn goes through
 ``force_x64()`` so the critical sections serialize.  The sections are short
 host-side evaluations (train.eval_stage_f64, polish.last_layer_lsq), so
 the lock is not a throughput concern.
